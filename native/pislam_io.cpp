@@ -1,10 +1,10 @@
 // pislam-tpu native runtime: PNG I/O + prefetching frame streamer.
 //
-// Role: the host-side data path around the TPU compute. The reference's
+// Role: the host-side data path around the device compute. The reference's
 // equivalent is the demo driver's libpng read/write (demo.cpp:141-276); here
 // it is a reusable shared library with a background decode thread and a ring
-// buffer so PNG decode overlaps TPU extraction (the reference's "Pi GPU does
-// the preprocessing" split becomes "CPU thread feeds the chip").
+// buffer so PNG decode overlaps device extraction (the reference's "Pi GPU
+// does the preprocessing" split becomes "CPU thread feeds the device").
 //
 // C ABI, consumed from Python via ctypes (pislam_tpu/io/native.py).
 //

@@ -2,15 +2,15 @@
 
 No reference counterpart (the reference is the SLAM *frontend* only,
 README.md:22); specified by BASELINE.json north star: "sparse bundle
-adjustment with Schur-complement reduction ... BA reductions over ICI
-collectives". TPU-first design decisions (SURVEY.md section 7, hard part (d)):
+adjustment with Schur-complement reduction ... BA reductions over
+collectives". Design decisions (SURVEY.md section 7, hard part (d)):
 
 * Fixed-shape block sparsity: a BA window holds C poses, P landmark slots and
   O observation slots, each with validity masks. Invalid slots carry zero
   Jacobians and drop out of every sum.
 * The camera-point coupling W is stored DENSE per point -- (P, C*6, 3) -- which
   is tiny for windowed BA (C<=16) and turns the Schur complement into one
-  einsum on the MXU instead of sparse scatter-gathers:
+  einsum instead of sparse scatter-gathers:
       S = H_cc + lambda I - sum_p W_p Hpp_p^{-1} W_p^T
 * Landmark blocks H_pp are (P, 3, 3); their inverses are closed-form adjugate
   (batched, no linalg loop).
@@ -125,7 +125,7 @@ def gn_normal_blocks(p: BAProblem, r, jc, jp):
     """Assemble the Schur ingredients from per-observation terms.
 
     Returns (H_cc (C,6,6), b_c (C,6), H_pp (P,3,3), b_p (P,3),
-    W (P, C, 6, 3)). All via segment_sum -- the TPU-native scatter-add.
+    W (P, C, 6, 3)). All via segment_sum (a fixed-shape scatter-add).
     """
     C = p.R.shape[0]
     P = p.points.shape[0]
@@ -146,7 +146,7 @@ def gn_normal_blocks(p: BAProblem, r, jc, jp):
 
 
 def schur_reduce(hcc, bc, hpp, bp, w, damping, cam_valid, axis_name=None,
-                 n_fixed: int = 1):
+                 n_fixed: int = 1, anchor=None):
     """Form the reduced camera system (S, b) and the point-solve helper.
 
     S = blockdiag(H_cc) + lambda I - sum_p Wp Hpp^{-1} Wp^T   ((6C, 6C) dense)
@@ -154,9 +154,10 @@ def schur_reduce(hcc, bc, hpp, bp, w, damping, cam_valid, axis_name=None,
 
     With `axis_name`, landmark shards are reduced over the mesh axis with
     psum (hcc/bc are also partial sums over the local observation shard):
-    this IS the distributed Schur-complement reduction over ICI collectives
+    this IS the distributed Schur-complement reduction over collectives
     (BASELINE.json north star). The returned (hpp_inv, wf) stay local to the
-    shard for back-substitution.
+    shard for back-substitution. ``anchor`` (6C,), a unit vector, pins one
+    more direction of the camera update (see scale_anchor).
     """
     C = hcc.shape[0]
     P = hpp.shape[0]
@@ -174,6 +175,13 @@ def schur_reduce(hcc, bc, hpp, bp, w, damping, cam_valid, axis_name=None,
     s = (-cross).reshape(C, 6, C, 6).at[idx, :, idx, :].add(hcc)
     s = s.reshape(6 * C, 6 * C) + damping * jnp.eye(6 * C, dtype=cross.dtype)
     b = bc.reshape(-1) - bcross
+    if anchor is not None:
+        # S <- P S P + a a^T, b <- P b with P = I - a a^T: the solve leaves
+        # the update's component along `anchor` at zero
+        sa = s @ anchor
+        s = (s - jnp.outer(anchor, sa) - jnp.outer(sa, anchor)
+             + (anchor @ sa + 1.0) * jnp.outer(anchor, anchor))
+        b = b - (anchor @ b) * anchor
 
     # gauge + invalid cameras: pin their deltas to zero via identity rows.
     # n_fixed >= 2 additionally anchors the SCALE gauge: monocular BA with
@@ -222,7 +230,7 @@ def _pcg(apply, minv_apply, b, iters: int):
 
 
 def reduced_system_cg(p: BAProblem, r, jc, jp, damping, iters: int,
-                      axis_name=None, n_fixed: int = 1):
+                      axis_name=None, n_fixed: int = 1, anchor=None):
     """Solve the Schur-reduced camera system matrix-free with block-Jacobi
     preconditioned CG -- the large-window path.
 
@@ -276,13 +284,23 @@ def reduced_system_cg(p: BAProblem, r, jc, jp, damping, iters: int,
         v = jnp.einsum("oki,ok->oi", jp, u)               # (O, 3)
         return jax.ops.segment_sum(v, p.obs_pt, num_segments=P)
 
+    def project(v_flat):
+        # P = I - a a^T (see schur_reduce's anchor)
+        if anchor is None:
+            return v_flat
+        return v_flat - (anchor @ v_flat) * anchor
+
     def apply(x_flat):
-        x = jnp.where(pin[:, None], 0.0, x_flat.reshape(C, 6))
+        x = jnp.where(pin[:, None], 0.0,
+                      project(x_flat).reshape(C, 6))
         y = points_from_cams(x)                           # (P, 3) local
         z = jnp.einsum("pij,pj->pi", hpp_inv, y)
         out = (jnp.einsum("cij,cj->ci", hcc, x) + damping * x
-               - cams_from_points(z))
-        out = jnp.where(pin[:, None], x_flat.reshape(C, 6), out)
+               - cams_from_points(z)).reshape(-1)
+        if anchor is not None:
+            out = project(out) + (anchor @ x_flat) * anchor
+        out = jnp.where(pin[:, None], x_flat.reshape(C, 6),
+                        out.reshape(C, 6))
         return out.reshape(-1)
 
     # block-Jacobi preconditioner from (H_cc + lambda I) camera blocks
@@ -298,7 +316,7 @@ def reduced_system_cg(p: BAProblem, r, jc, jp, damping, iters: int,
     z0 = jnp.einsum("pij,pj->pi", hpp_inv, bp)
     b = bc - cams_from_points(z0)
     b = jnp.where(pin[:, None], 0.0, b).reshape(-1)
-    dc_flat = _pcg(apply, minv, b, iters)
+    dc_flat = _pcg(apply, minv, project(b), iters)
     return dc_flat, hpp_inv, bp, points_from_cams
 
 
@@ -315,9 +333,22 @@ def _apply_update(p: BAProblem, dc, dp, pt_valid):
     return p._replace(R=Rn, t=tn, points=Xn)
 
 
+def _scale_anchor(p: BAProblem, k: int):
+    """(6C,) unit vector: camera k's centre moving along the baseline from
+    camera 0. With the left twist [rho, w] the centre c = -R^T t moves by
+    dc = -R^T rho, so d|c_k - c_0| = -(R_k u) . rho_k, u the unit
+    baseline."""
+    c = -jnp.einsum("cji,cj->ci", p.R, p.t)
+    u = c[k] - c[0]
+    u = u / jnp.maximum(jnp.linalg.norm(u), 1e-12)
+    a = jnp.zeros((p.R.shape[0], 6), p.R.dtype).at[k, :3].set(p.R[k] @ u)
+    return a.reshape(-1)
+
+
 def ba_iterations(p: BAProblem, iters: int, damping: float, axis_name=None,
                   solver: str = "dense", cg_iters: int = 64,
-                  huber: float = 0.0, n_fixed: int = 1):
+                  huber: float = 0.0, n_fixed: int = 1,
+                  scale_anchor: bool = False):
     """LM iteration loop, optionally distributed over `axis_name` (landmark/
     observation shards; poses replicated). Pure function, jit/shard_map-safe.
 
@@ -327,7 +358,14 @@ def ba_iterations(p: BAProblem, iters: int, damping: float, axis_name=None,
     the path for global BA at large keyframe capacity. ``huber`` > 0
     enables the robust kernel (residuals_and_jacobians); both the normal
     equations and the accept/reject costs use the robustified residuals,
-    so a gross outlier cannot veto every LM step."""
+    so a gross outlier cannot veto every LM step.
+
+    ``scale_anchor`` fixes the monocular gauge with exactly seven degrees
+    of freedom: the first ``n_fixed`` cameras are pinned, and camera
+    ``n_fixed`` keeps only its distance to camera 0 (its rotation and the
+    two other directions of its centre stay free). Pinning two whole
+    cameras instead fixes twelve, and the five extra hold the second
+    camera's tracked error in place."""
     assert solver in ("dense", "cg")
 
     def allsum(x):
@@ -337,10 +375,11 @@ def ba_iterations(p: BAProblem, iters: int, damping: float, axis_name=None,
         prob, lam = carry
         r, jc, jp, wmask = residuals_and_jacobians(prob, huber=huber)
         cost0 = allsum(jnp.sum(r * r))
+        anchor = _scale_anchor(prob, n_fixed) if scale_anchor else None
         if solver == "cg":
             dc_flat, hpp_inv, bp, points_from_cams = reduced_system_cg(
                 prob, r, jc, jp, lam, cg_iters, axis_name=axis_name,
-                n_fixed=n_fixed)
+                n_fixed=n_fixed, anchor=anchor)
             dc = dc_flat.reshape(-1, 6)
             dp = jnp.einsum("pij,pj->pi", hpp_inv,
                             bp - points_from_cams(dc))
@@ -348,7 +387,7 @@ def ba_iterations(p: BAProblem, iters: int, damping: float, axis_name=None,
             hcc, bc, hpp, bp, w = gn_normal_blocks(prob, r, jc, jp)
             s, b, hpp_inv, wf = schur_reduce(
                 hcc, bc, hpp, bp, w, lam, prob.cam_valid,
-                axis_name=axis_name, n_fixed=n_fixed)
+                axis_name=axis_name, n_fixed=n_fixed, anchor=anchor)
             dc_flat = jnp.linalg.solve(s, b)
             dc = dc_flat.reshape(-1, 6)
             # back-substitute landmarks: dp = Hpp^{-1} (b_p - W^T dc), local
@@ -370,10 +409,11 @@ def ba_iterations(p: BAProblem, iters: int, damping: float, axis_name=None,
 
 
 @partial(jax.jit, static_argnames=("iters", "solver", "cg_iters", "huber",
-                                   "n_fixed"))
+                                   "n_fixed", "scale_anchor"))
 def bundle_adjust(p: BAProblem, iters: int = 8, damping: float = 1e-4,
                   solver: str = "auto", cg_iters: int = 64,
-                  huber: float = 0.0, n_fixed: int = 1):
+                  huber: float = 0.0, n_fixed: int = 1,
+                  scale_anchor: bool = False):
     """Run `iters` LM iterations single-device. Returns (problem, info).
 
     solver="auto" picks the dense Schur factorisation for windowed sizes
@@ -382,4 +422,5 @@ def bundle_adjust(p: BAProblem, iters: int = 8, damping: float = 1e-4,
     if solver == "auto":
         solver = "cg" if p.R.shape[0] > 48 else "dense"
     return ba_iterations(p, iters, damping, solver=solver, cg_iters=cg_iters,
-                         huber=huber, n_fixed=n_fixed)
+                         huber=huber, n_fixed=n_fixed,
+                         scale_anchor=scale_anchor)

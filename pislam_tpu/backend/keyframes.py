@@ -3,8 +3,8 @@
 The reference's closest analog is the caller-owned append-only keypoint/
 descriptor vectors (Fast.h:198, Orb.h:397-398) and a painted PNG as the only
 persistence (demo.cpp:111; SURVEY.md section 5 "checkpoint/resume: none").
-Here the map is a real pytree of fixed-shape arrays (XLA-friendly, orbax-
-checkpointable, shardable across hosts for pod-scale SLAM):
+Here the map is a real pytree of fixed-shape arrays (XLA-friendly,
+checkpointable, shardable across devices and hosts):
 
 * keyframes: poses + per-keyframe feature block (codes/pts/desc/valid)
 * landmarks: world positions + the descriptor of their anchor observation
@@ -218,8 +218,8 @@ def covisibility(store: KeyframeStore, lmap: LandmarkMap,
                  obs: ObservationTable):
     """(F, F) covisibility weights: shared-landmark counts between keyframes.
 
-    The ORB-SLAM covisibility graph computed the TPU way: scatter the
-    observation table into a dense (F, L) incidence matrix, then one MXU
+    The ORB-SLAM covisibility graph as dense array code: scatter the
+    observation table into a dense (F, L) incidence matrix, then one
     matmul gives every pairwise count at once (no per-edge host logic).
     f32 is exact for counts < 2^24. Diagonal is zeroed; rows/columns of
     invalid keyframes are all zero.

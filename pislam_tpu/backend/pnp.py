@@ -1,11 +1,11 @@
 """Motion-only bundle adjustment: camera pose from 2D-3D correspondences.
 
-The TPU-native PnP. Given map landmarks (world xyz) matched to the current
-frame's normalised keypoints, refine the frame pose by robust Gauss-Newton
-on the reprojection error -- the ORB-SLAM-style "track the local map" step
-the reference never shipped (frontend-only, README.md:22). Fixed iteration
-count, fixed shapes, Huber re-weighting instead of explicit RANSAC: one
-jitted program.
+PnP as a fixed-shape batched solve. Given map landmarks (world xyz) matched
+to the current frame's normalised keypoints, refine the frame pose by
+robust Gauss-Newton on the reprojection error -- the ORB-SLAM-style "track
+the local map" step the reference never shipped (frontend-only,
+README.md:22). Fixed iteration count, fixed shapes, Huber re-weighting
+instead of explicit RANSAC: one jitted program.
 
 Jacobians come from forward-mode autodiff of the residual at the identity
 perturbation (exact, no hand-derived formulas), same pattern as

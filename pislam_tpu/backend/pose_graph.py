@@ -4,8 +4,8 @@ No reference counterpart; part of the backend specified by BASELINE.json
 configs[3]. Fixed-shape: N pose nodes, M edges with validity masks. For the
 window/keyframe-graph sizes SLAM uses (N <= a few hundred), the full (6N, 6N)
 normal matrix is small; we assemble it densely with segment_sums and solve
-with a damped dense factorisation -- the TPU-friendly inversion of sparse
-CPU solvers. Node 0 is gauge-fixed.
+with a damped dense factorisation -- the accelerator-friendly inversion of
+sparse CPU solvers. Node 0 is gauge-fixed.
 
 Edge residual (right-perturbation convention):
     r_ij = log( Z_ij^{-1} (X_i^{-1} X_j) )

@@ -44,8 +44,8 @@ class PyramidConfig:
     The pyramid is a single vertically stacked (total_height, stride) uint8
     buffer, levels top to bottom, each level left-aligned at column 0 (the
     reference's layout, README.md:56-83). ``stride`` is the padded width
-    (lane-friendly multiple of 128); ``padded_height`` rounds the stack to a
-    sublane-friendly multiple of 8.
+    (a multiple of 128); ``padded_height`` rounds the stack to a multiple of
+    8.
     """
 
     base_width: int = 640
@@ -103,27 +103,10 @@ class FrontendConfig:
     # README.md:99-101 "comfortably handle up to 2000"); raise for
     # low-threshold configs. Per-frame cost scales with this capacity.
     max_keypoints: int = 2048
-    # Run FAST+Harris+NMS+encode as one fused Pallas pass instead of XLA
-    # dense ops (2.7x faster in isolation and ~10-30% faster in-context
-    # alongside the Pallas BRIEF kernel; interleaved A/B via
-    # tools/ab_frontend.py). Bit-exact either way; the XLA path remains the
-    # oracle and the CPU/bucketed fallback.
-    fused_upstream: bool = True
-    # BRIEF rotation-select kernel: "dense" runs all 30 rotation matmuls
-    # per block and selects (pallas_kernels.orb_select_bits); "sorted"
-    # computes angles first, sorts keypoints by bin and skips rotations
-    # outside each block's bin range (orb_select_bits_sorted). Bit-exact
-    # either way (asserted on hardware, tools/ab_orb_sort.py). Measured on
-    # the demo pyramid: isolated stage 0.121 vs 0.114 ms (~6%), but
-    # IN-CONTEXT the full frontend runs 0.541 vs 0.326 ms/frame (1.66x) --
-    # the dense variant's ~30x MXU over-work crowds out the rest of the
-    # pipeline (interleaved A/B, tools/ab_frontend.py 2026-08-17).
-    brief_variant: str = "sorted"
 
     def __post_init__(self):
         assert self.border >= 16, "border must cover FAST(3)+Harris(4)+ORB(15)"
         assert 1 <= self.words <= 8
-        assert self.brief_variant in ("dense", "sorted")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -52,11 +52,11 @@ def nullvec_8x9(a):
 
     The nullvector of an exactly-8-row A is the 9th column of Q in the QR
     factorisation of A^T (9, 8), computed as 8 batched Householder
-    reflections -- fixed-shape, unrolled, pure VPU arithmetic, exact to
-    f32 roundoff. On TPU this replaces per-hypothesis LAPACK-style SVD
-    loops, which measured as ~98% of the whole VO frame
-    (tools/ab_ransac.py). Shared by the essential (8 x 1-row) and
-    homography (4 x 2-row) RANSAC hypothesis solvers."""
+    reflections -- fixed-shape, unrolled, pure elementwise arithmetic,
+    exact to f32 roundoff. It replaces a per-hypothesis batched SVD, which
+    does not vectorise over hundreds of tiny matrices. Shared by the
+    essential (8 x 1-row) and homography (4 x 2-row) RANSAC hypothesis
+    solvers."""
     r = jnp.swapaxes(a, -1, -2)                  # (..., 9, 8) = A^T
     i9 = jnp.arange(9)
     vs = []

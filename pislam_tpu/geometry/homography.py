@@ -3,7 +3,7 @@
 An essential matrix is degenerate when the scene is a single plane (the
 8-point system drops rank and RANSAC returns an arbitrary member of a
 two-parameter family); real initialisers (ORB-SLAM) therefore also fit a
-homography and recover (R, t, n) from it. TPU-native shape: fixed-iteration
+homography and recover (R, t, n) from it. Fixed-shape form: fixed-iteration
 vmapped 4-point DLT hypotheses, one (iters, N) symmetric-transfer scoring
 pass, Faugeras-Lustman decomposition into the 8 (R, t, n) candidates as a
 fixed-shape batch, and cheirality (positive triangulated depths both views
@@ -47,8 +47,8 @@ def homography_dlt_fast(p1, p2):
 
     A 4-point sample gives an exactly-8-row DLT system: the nullvector
     comes from the shared LAPACK-free Householder QR
-    (epipolar.nullvec_8x9) instead of a per-hypothesis SVD loop (the same
-    TPU pathology tools/ab_ransac.py measured for the essential solver).
+    (epipolar.nullvec_8x9) instead of a per-hypothesis SVD, as in the
+    essential solver.
     Refit the winner with `homography_dlt` (exact SVD, once)."""
     x1, y1 = p1[..., 0], p1[..., 1]
     x2, y2 = p2[..., 0], p2[..., 1]

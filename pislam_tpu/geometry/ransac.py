@@ -34,9 +34,9 @@ def ransac_essential(key, p1, p2, valid, iters: int = 256,
     s1 = p1[idx]  # (iters, 8, 2)
     s2 = p2[idx]
     # SVD-free batched hypothesis solve (epipolar.essential_8pt_fast):
-    # the per-hypothesis LAPACK SVD loop was ~98% of the whole VO frame
-    # on TPU (6.5 of 6.6 ms; tools/ab_ransac.py). Scoring uses the raw
-    # (unprojected) E; the winner below is refit with the exact SVD path.
+    # no per-hypothesis SVD over hundreds of tiny matrices. Scoring uses
+    # the raw (unprojected) E; the winner below is refit with the exact SVD
+    # path.
     es = epipolar.essential_8pt_fast(s1, s2)       # (iters, 3, 3)
 
     err = jax.vmap(lambda e: epipolar.sampson_error(e, p1, p2))(es)  # (iters, N)

@@ -1,4 +1,4 @@
-"""SE(3) / SO(3) utilities in pure JAX (TPU-friendly float32).
+"""SE(3) / SO(3) utilities in pure JAX (fixed-shape float32).
 
 No reference counterpart (the reference is frontend-only, README.md:22); this
 underpins the VO/pose-graph/BA backend specified by BASELINE.json's north

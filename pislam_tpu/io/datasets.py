@@ -177,3 +177,28 @@ def kitti_dataset(root: str, sequence: str = "00", capacity: int = 8):
     if os.path.exists(poses_file):
         gt = load_kitti_poses(poses_file)
     return paths, times, gt
+
+
+
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "data")
+
+
+def texture_frame(width: int = 640, height: int = 480) -> np.ndarray:
+    """A (height, width) u8 frame of real texture from the committed data:
+    a 2x2 mosaic of the first frame of data/eval_seq{,2,3,4}.npz, each
+    quadrant cropped at native resolution. No resampling, so corners keep
+    their contrast: upscaling one 384x256 frame to VGA leaves under a
+    hundred features at the demo thresholds, the mosaic about 800."""
+    hh, hw = height // 2, width // 2
+    names = ("eval_seq", "eval_seq2", "eval_seq3", "eval_seq4")
+    quads = [np.load(os.path.join(DATA_DIR, n + ".npz"))["frames"][0]
+             for n in names]
+    assert all(q.shape[0] >= height - hh and q.shape[1] >= width - hw
+               for q in quads), "frame too large for the committed texture"
+    out = np.zeros((height, width), np.uint8)
+    out[:hh, :hw] = quads[0][:hh, :hw]
+    out[:hh, hw:] = quads[1][:hh, :width - hw]
+    out[hh:, :hw] = quads[2][:height - hh, :hw]
+    out[hh:, hw:] = quads[3][:height - hh, :width - hw]
+    return out

@@ -1,13 +1,13 @@
-"""Brute-force Hamming descriptor matching on the MXU.
+"""Brute-force Hamming descriptor matching as one int8 matmul.
 
 The reference delegates matching to external FLANN with LUT popcounts
 (<20 ms/frame on Pi3, README.md:125-128, "room for improvement") and ships
-nothing. TPU-native design: expand each 256-bit descriptor to a +/-1 int8
+nothing. Here: expand each 256-bit descriptor to a +/-1 int8
 vector; then
 
     dot(a, b) = 256 - 2 * hamming(a, b)   =>   hamming = (256 - dot) >> 1
 
-so the full K1 x K2 distance matrix is ONE int8 MXU matmul (exact int32
+so the full K1 x K2 distance matrix is ONE int8 matmul (exact int32
 accumulation), followed by vectorised best/second-best reduction, Lowe ratio
 test, distance threshold, and mutual cross-check -- all fixed-shape.
 
@@ -36,7 +36,7 @@ def expand_pm1(desc):
 def hamming_matrix(desc1, desc2, valid1=None, valid2=None):
     """(K1, w), (K2, w) packed descriptors -> (K1, K2) int32 Hamming distances.
 
-    Exact: dot on the MXU in int8 with int32 accumulation.
+    Exact: int8 dot with int32 accumulation.
     """
     nbits = desc1.shape[1] * 32
     a = expand_pm1(desc1)
@@ -53,16 +53,37 @@ def hamming_matrix(desc1, desc2, valid1=None, valid2=None):
     return dist
 
 
+def gate(dist, uv1, uv2, radius: float):
+    """Pin pairs farther apart than `radius` on the normalised plane to
+    MAX_DIST (pairs exactly on the radius stay candidates)."""
+    d2 = jnp.sum((uv1[:, None, :] - uv2[None, :, :]) ** 2, axis=-1)
+    return jnp.where(d2 <= radius * radius, dist, MAX_DIST)
+
+
 def _best_two(dist):
     """Row-wise (best_idx, best, second_best) of a distance matrix.
 
-    Scatter-free: a masked second min (TPU scatters cost ~1 us per row)."""
+    Scatter-free: the second best is a masked second min."""
     best_idx = jnp.argmin(dist, axis=1)
     best = jnp.min(dist, axis=1)
     cols = jnp.arange(dist.shape[1], dtype=best_idx.dtype)
     masked = jnp.where(cols[None, :] == best_idx[:, None], MAX_DIST, dist)
     second = jnp.min(masked, axis=1)
     return best_idx, best, second
+
+
+def _accept(dist, valid1, max_distance, ratio, cross_check):
+    """Best match per row through threshold, Lowe ratio and cross-check.
+
+    Returns (idx2 (K1,) int32 with -1 for unmatched, dist (K1,) int32)."""
+    idx2, best, second = _best_two(dist)
+    ok = best <= max_distance
+    ok &= best.astype(jnp.float32) < ratio * second.astype(jnp.float32)
+    if cross_check:
+        rbest_idx = jnp.argmin(dist, axis=0)
+        ok &= rbest_idx[idx2] == jnp.arange(dist.shape[0])
+    ok &= valid1
+    return jnp.where(ok, idx2, -1), jnp.where(ok, best, MAX_DIST)
 
 
 @partial(jax.jit, static_argnames=("max_distance", "cross_check"))
@@ -73,38 +94,9 @@ def match(desc1, desc2, valid1, valid2, max_distance: int = 64,
     Returns (idx2 (K1,) int32 with -1 for unmatched, dist (K1,) int32).
     Filters: Hamming <= max_distance, Lowe ratio best < ratio*second,
     and optional mutual-best cross-check.
-
-    Off-CPU the distance matrix never reaches HBM: the Pallas kernel
-    (pallas_kernels.match_reduce) fuses the i8 MXU distance blocks with all
-    four reductions in VMEM. Measured wall-time is a wash vs the XLA path
-    (~42 us either way at K=2048, interleaved A/B: tools/ab_match.py --
-    XLA fuses these reductions well); the kernel is kept for its memory
-    footprint (no 16 MB transient) and identical first-occurrence
-    semantics, with the XLA path serving CPU and unaligned shapes.
     """
-    nbits = desc1.shape[1] * 32
-    # kernel envelope: lane-aligned shapes. Database size is unbounded --
-    # the kernel streams (MATCH_BLOCK, MATCH_BLOCK_K2) tiles through VMEM
-    # with running row/column accumulators (pallas_kernels.match_reduce),
-    # so map-scale K2 never materialises a (K1, K2) HBM transient.
-    aligned = desc2.shape[0] % 128 == 0 and nbits % 128 == 0
-    if jax.default_backend() != "cpu" and aligned:
-        from .ops import pallas_kernels as pk
-
-        a = expand_pm1(desc1)
-        b = expand_pm1(desc2)
-        best, second, idx2, col_arg = pk.match_reduce(a, b, valid1, valid2)
-        rbest_idx = col_arg
-    else:
-        dist = hamming_matrix(desc1, desc2, valid1, valid2)
-        idx2, best, second = _best_two(dist)
-        rbest_idx = jnp.argmin(dist, axis=0) if cross_check else None
-    ok = best <= max_distance
-    ok &= best.astype(jnp.float32) < ratio * second.astype(jnp.float32)
-    if cross_check:
-        ok &= rbest_idx[idx2] == jnp.arange(desc1.shape[0])
-    ok &= valid1
-    return jnp.where(ok, idx2, -1), jnp.where(ok, best, MAX_DIST)
+    dist = hamming_matrix(desc1, desc2, valid1, valid2)
+    return _accept(dist, valid1, max_distance, ratio, cross_check)
 
 
 @partial(jax.jit, static_argnames=("radius", "max_distance", "cross_check"))
@@ -124,36 +116,10 @@ def match_gated(desc1, desc2, valid1, valid2, uv1, uv2, radius: float,
     uv1 (K1, 2), uv2 (K2, 2): normalised-plane coordinates of the query
     features and the projected landmarks (pass inf/large values for
     behind-camera projections to exclude them).
-
-    Off-CPU the gate is fused into the Pallas match kernel (the same
-    streaming tile reduction as `match`, with per-tile coordinate planes
-    pinning outside-radius pairs to MAX_DIST in-register) so the
-    production map-tracking config never materialises the two (K1, K2)
-    matrices in HBM; the XLA dense-matrix path serves CPU and unaligned
-    shapes, bit-identically (interpreter tests + tools/tpu_parity.py).
     """
-    nbits = desc1.shape[1] * 32
-    aligned = desc2.shape[0] % 128 == 0 and nbits % 128 == 0
-    if jax.default_backend() != "cpu" and aligned:
-        from .ops import pallas_kernels as pk
-
-        a = expand_pm1(desc1)
-        b = expand_pm1(desc2)
-        best, second, idx2, col_arg = pk.match_reduce(
-            a, b, valid1, valid2, uv1, uv2, float(radius))
-        rbest_idx = col_arg
-    else:
-        dist = hamming_matrix(desc1, desc2, valid1, valid2)
-        d2 = jnp.sum((uv1[:, None, :] - uv2[None, :, :]) ** 2, axis=-1)
-        dist = jnp.where(d2 <= radius * radius, dist, MAX_DIST)
-        idx2, best, second = _best_two(dist)
-        rbest_idx = jnp.argmin(dist, axis=0) if cross_check else None
-    ok = best <= max_distance
-    ok &= best.astype(jnp.float32) < ratio * second.astype(jnp.float32)
-    if cross_check:
-        ok &= rbest_idx[idx2] == jnp.arange(desc1.shape[0])
-    ok &= valid1
-    return jnp.where(ok, idx2, -1), jnp.where(ok, best, MAX_DIST)
+    dist = gate(hamming_matrix(desc1, desc2, valid1, valid2), uv1, uv2,
+                radius)
+    return _accept(dist, valid1, max_distance, ratio, cross_check)
 
 
 @partial(jax.jit, static_argnames=("max_distance", "cross_check"))
@@ -169,7 +135,7 @@ def match_many(descs, valids, desc2, valid2, max_distance: int = 64,
     This is the batched loop-closure/relocalisation primitive: the round-1
     implementation issued one jitted dispatch + one ~30 ms host readback per
     stored keyframe (ADVICE round-1); here the (F*K1, K2) distance matrix is
-    one i8 MXU matmul and the host reads back a single (F,) count vector.
+    one int8 matmul and the host reads back a single (F,) count vector.
     """
     f, k1, words = descs.shape
     nbits = words * 32

@@ -20,7 +20,7 @@ Ratio rationale (Bilinear.h:28-31, :153): chains of 7/8 and 13/16 approximate
 the 5/6 pyramid step. ``resize_bilinear`` provides a general fixed-point
 bilinear resize (half-pixel centers) used to build the demo's exact
 round(640*(5/6)^l) level table on-device (the reference delegates this to the
-Pi GPU, README.md:28-31; the TPU build brings it in-scope, SURVEY.md section 1).
+Pi GPU, README.md:28-31; this build brings it in-scope, SURVEY.md section 1).
 
 Inputs must be padded to a multiple of 8 (7/8) or 16 (13/16) in both
 dimensions, mirroring the reference's padding contract (Bilinear.h:32, :155).

@@ -13,7 +13,7 @@ In signed int16 arithmetic the saturation is automatic (img[p] < c - t is
 never true when c - t < 0, exactly as img[p] < 0 is never true), so we compute
 the 16 ring tests with 16 shifted views + compares, pack them into a 16-bit
 ring mask per pixel, and find a length-9 circular run with a logarithmic
-shift-AND reduction -- the TPU-idiomatic inversion of the reference's
+shift-AND reduction -- the data-parallel inversion of the reference's
 clz-based run test (Fast.h:138-147).
 
 The reference's "classify 15 extra pixels past width" overwrite contract

@@ -47,8 +47,8 @@ def _shifts(img, axis):
     """Five static offset views (-2..+2) along ``axis`` of a 2-padded image.
 
     Static slices (unlike index-array gathers) fuse into the consuming
-    elementwise chain on TPU, so the whole blur compiles to pad + one fused
-    VPU loop instead of eight materialised gathers.
+    elementwise chain, so the whole blur compiles to pad + one fused
+    elementwise loop instead of eight materialised gathers.
     """
     n = img.shape[axis] - 4
     return tuple(

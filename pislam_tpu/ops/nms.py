@@ -93,33 +93,8 @@ def select_topk(enc_grid, k: int):
 
 
 def select_topk_scored(scored, k: int):
-    """Fixed-capacity selection from a scored-survivor grid (u8, 0 = none).
-
-    Equivalent to select_topk(encode_grid(scored, scored > 0), k) but uses
-    the Pallas 4x exact candidate reduction off-CPU (pallas_kernels.py:
-    3x3 NMS leaves <= 1 survivor per 2x2 block, so a 2x2 code-max preserves
-    the survivor set and cuts top_k's N-linear cost 4x).
-    """
-    from . import pallas_kernels
-
-    if pallas_kernels.available(scored.shape):
-        reduced = pallas_kernels.reduce_codes_4x(scored)
-        return select_topk_codes(reduced, k)
+    """Fixed-capacity selection from a scored-survivor grid (u8, 0 = none)."""
     return select_topk(encode_grid(scored, scored > 0), k)
-
-
-def select_topk_codes(codes_grid, k: int):
-    """Top-k of a (sparse) u32 code array: bitonic kernel when possible."""
-    from . import pallas_kernels
-
-    if (jax.default_backend() != "cpu" and k & (k - 1) == 0 and k >= 256):
-        keys = jax.lax.bitcast_convert_type(
-            codes_grid.reshape(-1) ^ jnp.uint32(0x80000000), jnp.int32)
-        top = pallas_kernels.topk_keys(keys, k)
-        codes = (jax.lax.bitcast_convert_type(top, jnp.uint32)
-                 ^ jnp.uint32(0x80000000))
-        return codes, codes != 0
-    return select_topk(codes_grid, k)
 
 
 def bucket_topk(enc_grid, border: int, log_bucket_size: int, bucket_limit: int):

@@ -6,9 +6,9 @@ per-row compare-generated masks; pislam::atan2 (Orb.h:310-387) converts the
 moment vector to a discrete angle bin in [0, 30) (12-degree resolution,
 README.md:105) with a 2-term polynomial atan approximation.
 
-Here the strip machinery inverts into a single (K, 961) x (961, 2) matmul on
-the MXU against precomputed weight columns [x * disc(x,y), y * disc(x,y)].
-Exactness: products <= 255*15 and moment magnitudes < 2^24, so float32 MXU
+Here the strip machinery inverts into a single (K, 961) x (961, 2) matmul
+against precomputed weight columns [x * disc(x,y), y * disc(x,y)].
+Exactness: products <= 255*15 and moment magnitudes < 2^24, so float32
 accumulation is integer-exact, matching the reference's int32 moments
 bit-for-bit.
 

@@ -1,14 +1,15 @@
-"""Per-keypoint 31x31 patch gather, MXU-formulated.
+"""Per-keypoint 31x31 patch gathers.
 
 The reference's per-feature stages (orbCentroids' disc moments, Orb.h:80-308,
 and the BRIEF compares, Brief.h:28-53) read the 31x31 window around each
-keypoint. A naive XLA gather of (K, 31, 31) windows is slice-count-bound on
-TPU (~10x too slow); instead we:
+keypoint. Two layouts are provided:
 
-1. gather one aligned (32, SLAB) slab per keypoint with vmap(dynamic_slice)
-   -- K big slices instead of K*31 row slices;
-2. extract the 31 patch columns with a per-keypoint one-hot (SLAB, 31)
-   selection matmul on the MXU (int8 x int8 -> int32, exact).
+* ``gather_patches_s8``: (K, 31, 31) patches -- one (32, SLAB) slab per
+  keypoint with vmap(dynamic_slice), then the 31 patch columns picked by a
+  per-keypoint one-hot (SLAB, 31) int8 matmul (exact in int32). Used by the
+  unpacked reference path (orientation.centroids / brief.describe).
+* ``gather_patches_packed_s8``: (K, 1024) packed 32x32 windows, the
+  production frontend's layout (see below).
 
 Patches are returned as int8 **offset by -128** (value = I - 128, an
 order-preserving bijection of uint8). Both consumers are offset-invariant:
@@ -67,13 +68,12 @@ def gather_patches(img, xs, ys, valid):
 
 
 # ---------------------------------------------------------------------------
-# packed flat windows: the TPU fast path's native patch layout
+# packed flat windows
 # ---------------------------------------------------------------------------
 # A 32x32 window (rows y-15..y+16, cols x-15..x+16) stored as 1024 bytes
-# with byte (r, c) at index (r >> 2) * 128 + c * 4 + (r & 3) -- the layout
-# produced for free by Pallas' sublane-packing bitcast (pallas_kernels.py).
-# Consumers (orientation/brief) use weight matrices remapped to this layout,
-# so no transpose/unpack ever materialises.
+# with byte (r, c) at index (r >> 2) * 128 + c * 4 + (r & 3): four rows
+# interleaved per column. Consumers (orientation/brief) use weight matrices
+# remapped to this layout, so no transpose/unpack ever materialises.
 
 def packed_index_map() -> "np.ndarray":
     """(31, 31) -> flat packed index for weight-matrix remapping."""
@@ -95,24 +95,18 @@ def remap_weights_packed(w961):
 def gather_patches_packed_s8(img, xs, ys, valid):
     """(K, 1024) int8 packed windows, offset by -128 (value = I - 128).
 
-    Off-CPU this is the Pallas rowgather+realign path (no per-keypoint
-    dynamic slicing -- see pallas_kernels.py). The CPU fallback derives the
-    identical bytes from vmapped dynamic slices.
+    One vmapped (32, 32) dynamic slice per keypoint, relaid to the packed
+    order. Invalid keypoints read a safe interior window (mask by `valid`).
     """
-    from . import pallas_kernels
-
-    if pallas_kernels.available(img.shape):
-        flat = pallas_kernels.gather_windows_packed(img, xs, ys, valid)
-    else:
-        h, w = img.shape
-        safe_x = jnp.clip(jnp.where(valid, xs, RADIUS + 1),
-                          RADIUS, w - RADIUS - 2).astype(jnp.int32)
-        safe_y = jnp.clip(jnp.where(valid, ys, RADIUS + 1),
-                          RADIUS, h - RADIUS - 2).astype(jnp.int32)
-        win = jax.vmap(
-            lambda y, x: jax.lax.dynamic_slice(
-                img, (y - RADIUS, x - RADIUS), (32, 32))
-        )(safe_y, safe_x)                                   # (K, 32, 32) u8
-        # (K, 8, 4, 32) -> packed (a*128 + c*4 + b)
-        flat = win.reshape(-1, 8, 4, 32).transpose(0, 1, 3, 2).reshape(-1, 1024)
+    h, w = img.shape
+    safe_x = jnp.clip(jnp.where(valid, xs, RADIUS + 1),
+                      RADIUS, w - RADIUS - 2).astype(jnp.int32)
+    safe_y = jnp.clip(jnp.where(valid, ys, RADIUS + 1),
+                      RADIUS, h - RADIUS - 2).astype(jnp.int32)
+    win = jax.vmap(
+        lambda y, x: jax.lax.dynamic_slice(
+            img, (y - RADIUS, x - RADIUS), (32, 32))
+    )(safe_y, safe_x)                                   # (K, 32, 32) u8
+    # (K, 8, 4, 32) -> packed (a*128 + c*4 + b)
+    flat = win.reshape(-1, 8, 4, 32).transpose(0, 1, 3, 2).reshape(-1, 1024)
     return (flat ^ jnp.uint8(0x80)).astype(jnp.int8)

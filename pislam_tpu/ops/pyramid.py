@@ -2,7 +2,7 @@
 
 The reference treats pyramid building as out-of-scope for the CPU ("The
 Raspberry Pi GPU is better suited for this task", README.md:28-31) and ships
-only the kernels (gaussian5x5, bilinear7_8/13_16). The TPU build brings the
+only the kernels (gaussian5x5, bilinear7_8/13_16). This build brings the
 whole pyramid on-device (SURVEY.md section 1): one jitted function takes a
 camera frame and emits the stacked (total_height, stride) uint8 buffer the
 frontend consumes, with the demo's exact level table round(base*(5/6)^l)

@@ -1,9 +1,9 @@
 """Distributed execution: data-parallel extraction, sharded BA.
 
-shard_map-based SPMD wrappers (XLA inserts the collectives; they ride ICI on
-a real slice). The reference has no counterpart (SURVEY.md section 2); layout
-follows the north star: frames data-parallel, map blocks model-parallel,
-Schur reductions as psums.
+shard_map-based SPMD wrappers (XLA inserts the collectives; across GPUs of
+one host they ride NVLink). The reference has no counterpart (SURVEY.md
+section 2); layout follows the north star: frames data-parallel, map blocks
+model-parallel, Schur reductions as psums.
 """
 
 from __future__ import annotations
@@ -135,9 +135,9 @@ def make_slam_streaming(cfg: PislamConfig, fx: float, fy: float,
     device-resident tracking scan (models/slam_scan.py) over its streams --
     B independent SLAM sessions (separate keyframe rings / landmark maps)
     advance T frames in ONE dispatch. This is the dataset-sweep / fleet
-    shape: map a directory of sequences over the pod, collect trajectories
-    and final map states (checkpointable per stream). Returns a jitted
-    (states, frames) -> (states, outs) with outs stacked (B, T, ...).
+    shape: map a directory of sequences over the devices, collect
+    trajectories and final map states (checkpointable per stream). Returns
+    a jitted (states, frames) -> (states, outs) with outs stacked (B, T, ...).
     """
     from ..models.slam_scan import make_slam_track_scan
 
@@ -164,12 +164,6 @@ def batch_slam_states(cfg: PislamConfig, n: int, seed: int = 7):
     return jax.tree.map(lambda *xs: jnp.stack(xs), *states)
 
 
-# test hook: the CPU suite runs the Pallas branch of _sharded_match_local
-# under the Mosaic interpreter by flipping this (tests/test_parallel.py);
-# production CPU fallback keeps the XLA dense path.
-_FORCE_MATCH_KERNEL = False
-
-
 def _sharded_match_local(axis: str, n: int, descA, descB_s, validA, validB_s,
                          max_distance: int, ratio: float, cross_check: bool,
                          gate=None):
@@ -186,33 +180,11 @@ def _sharded_match_local(axis: str, n: int, descA, descB_s, validA, validB_s,
 
     k1 = descA.shape[0]
     k2s = descB_s.shape[0]
-    nbits = descA.shape[1] * 32
-    aligned = k2s % 128 == 0 and nbits % 128 == 0
-    if aligned and (jax.default_backend() != "cpu"
-                    or _FORCE_MATCH_KERNEL):
-        # per-shard fused tile reduction (ops/pallas_kernels.match_reduce,
-        # optionally gated): the (K1, K2s) distance matrix never reaches
-        # HBM on any shard; bit-identical to the dense path below.
-        from ..ops import pallas_kernels as pk
-
-        a = m.expand_pm1(descA)
-        b = m.expand_pm1(descB_s)
-        if gate is not None:
-            uvA, uvB_s, radius = gate
-            best, second, bidx, rbest = pk.match_reduce(
-                a, b, validA, validB_s, uvA, uvB_s, float(radius))
-        else:
-            best, second, bidx, rbest = pk.match_reduce(
-                a, b, validA, validB_s)
-    else:
-        dist = m.hamming_matrix(descA, descB_s, validA, validB_s)
-        if gate is not None:  # (uvA (K1,2), uvB_s (K2s,2), radius)
-            uvA, uvB_s, radius = gate
-            d2 = jnp.sum((uvA[:, None, :] - uvB_s[None, :, :]) ** 2,
-                         axis=-1)
-            dist = jnp.where(d2 <= radius * radius, dist, m.MAX_DIST)
-        bidx, best, second = m._best_two(dist)
-        rbest = jnp.argmin(dist, axis=0)
+    dist = m.hamming_matrix(descA, descB_s, validA, validB_s)
+    if gate is not None:  # (uvA (K1,2), uvB_s (K2s,2), radius)
+        dist = m.gate(dist, *gate)
+    bidx, best, second = m._best_two(dist)
+    rbest = jnp.argmin(dist, axis=0)
     shard = jax.lax.axis_index(axis)
     gidx = bidx + shard * k2s
 
@@ -232,7 +204,7 @@ def _sharded_match_local(axis: str, n: int, descA, descB_s, validA, validB_s,
     ok = best_g <= max_distance
     ok &= best_g.astype(jnp.float32) < ratio * second_g.astype(jnp.float32)
     if cross_check:
-        # rbest: per local column first-argmin (computed above per branch)
+        # rbest: per local column first-argmin
         all_rbest = jax.lax.all_gather(rbest, axis).reshape(n * k2s)
         ok &= all_rbest[idx_g] == rows
     ok &= validA
@@ -347,11 +319,11 @@ def make_sharded_match(mesh: Mesh, axis: str = "model",
                        cross_check: bool = True):
     """Cross-shard Hamming matching: query descriptors replicated, database
     descriptors sharded on `axis` (e.g. a landmark map split across chips,
-    SURVEY.md section 5 "ICI collectives for Hamming-matching shards").
+    SURVEY.md section 5 "collectives for Hamming-matching shards").
 
-    Each device matmuls its database shard (matching.hamming_matrix on the
-    MXU), then the per-row (best, second, index) candidates are merged with
-    one all_gather over the axis -- identical results to single-device
+    Each device matmuls its database shard (matching.hamming_matrix), then
+    the per-row (best, second, index) candidates are merged with one
+    all_gather over the axis -- identical results to single-device
     matching.match, bit for bit.
 
     Returns run(descA, descB_sharded, validA, validB_sharded) -> (idx, dist)
@@ -434,7 +406,7 @@ def make_distributed_ba(mesh: Mesh, iters: int = 8, damping: float = 1e-4,
     after one psum per LM iteration; "cg" never materialises W or S --
     reduced_system_cg applies S x from shard-local per-observation terms
     and psums only the (C, 6) camera-sized vectors per CG iteration, the
-    pod-scale global-BA path at large keyframe capacity (the dense path's
+    global-BA path at large keyframe capacity (the dense path's
     (P, C*6, 3) W tensor and O((6C)^3) factorisation stop scaling there).
     """
     shard = P(axis)

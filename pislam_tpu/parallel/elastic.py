@@ -1,11 +1,11 @@
-"""Multi-host bootstrap + elastic checkpoint/resume for pod-scale SLAM.
+"""Multi-host bootstrap + elastic checkpoint/resume for multi-process SLAM.
 
 The reference is a single-core library with no failure story (SURVEY.md
-section 5: no long-running service). At pod scale (BASELINE.json configs[4])
-the TPU-native equivalents are:
+section 5: no long-running service). Across processes (BASELINE.json
+configs[4]) the equivalents are:
 
-* process bootstrap: jax.distributed.initialize joins this host to the
-  slice's coordination service; XLA's own barrier/heartbeat layer then
+* process bootstrap: jax.distributed.initialize joins this process to the
+  cluster's coordination service; XLA's own barrier/heartbeat layer then
   detects peer failure (a crashed host fails the collective, surfacing as a
   Python exception here rather than a hang).
 * elasticity: SLAM state is a pytree (backend/keyframes.py), so recovery is
@@ -27,8 +27,9 @@ def initialize_multihost(coordinator: Optional[str] = None,
     """Join the JAX distributed runtime (no-op on a single-process run).
 
     Arguments default from the standard env vars (JAX_COORDINATOR_ADDRESS,
-    JAX_NUM_PROCESSES, JAX_PROCESS_ID); on TPU pods jax fills them from the
-    metadata server automatically. Returns the local process index.
+    JAX_NUM_PROCESSES, JAX_PROCESS_ID); with neither arguments nor
+    variables the run stays single-process. Returns the local process
+    index.
     """
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     n = num_processes or int(os.environ.get("JAX_NUM_PROCESSES", "0") or 0)
@@ -105,8 +106,8 @@ class CheckpointedRunner:
         import jax.numpy as jnp
 
         os.makedirs(self._dir, exist_ok=True)
-        # single atomic payload: state + counter together (orbax writes to a
-        # temp dir and renames)
+        # single atomic payload: state + counter together (checkpoint.save
+        # writes a temp dir and renames it into place)
         self._ckpt.save(os.path.join(self._dir, "state"),
                         {"state": state,
                          "steps_done": jnp.int32(self.steps_done)})

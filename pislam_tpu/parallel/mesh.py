@@ -1,12 +1,12 @@
 """Device mesh construction for pislam-tpu.
 
 The reference has zero parallelism infrastructure (SURVEY.md section 2:
-no threads, no MPI/NCCL; single-core NEON). The TPU framework scales along
-two axes (BASELINE.json north star):
+no threads, no MPI/NCCL; single-core NEON). This framework scales along two
+axes (BASELINE.json north star):
 
 * "data"  -- frames: each device extracts/matches its own camera frames.
 * "model" -- the map: landmarks + observations of a BA window are sharded;
-             Schur reductions run as psums over ICI (backend/ba.py).
+             Schur reductions run as psums (backend/ba.py).
 """
 
 from __future__ import annotations
@@ -22,8 +22,8 @@ def make_mesh(cfg: MeshConfig = MeshConfig(), devices=None) -> Mesh:
     devices = list(devices if devices is not None else jax.devices())
     dp, mp = cfg.data_parallel, cfg.model_parallel
     if dp * mp != len(devices):
-        # default: all devices on data axis
-        dp, mp = len(devices), 1
+        raise ValueError(
+            f"mesh {dp}x{mp} needs {dp * mp} devices, got {len(devices)}")
     arr = np.asarray(devices).reshape(dp, mp)
     return Mesh(arr, (cfg.data_axis, cfg.model_axis))
 

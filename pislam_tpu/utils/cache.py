@@ -1,22 +1,21 @@
-"""Persistent XLA compilation cache — one per-user default for the repo.
+"""Persistent XLA compilation cache -- one location for every entry point.
 
-Every entry point (bench, tools, service, demo, driver hooks) wants the
-persistent compilation cache: first compiles of the full pipeline take
-minutes, repeats are seconds. The default path is per-user under the system
-temp dir (a fixed world-writable /tmp path would let another user pre-create
-or poison the cache JAX deserializes executables from, and shared dirs are a
-lock-contention surface for concurrent runs — ADVICE.md round 2).
-
-Override with JAX_COMPILATION_CACHE_DIR.
+First compiles of the full pipeline take minutes; repeats from the cache
+take seconds. Where ``JAX_COMPILATION_CACHE_DIR`` is set, the cache lives
+there and nothing else is configured. Otherwise it lives at a fixed
+``<repo>/.jax_cache`` (listed in .gitignore): a fixed path keeps cache keys
+stable between runs, and the checkout is the one directory every run of the
+repo can write.
 """
 
 import os
-import tempfile
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 def default_cache_dir() -> str:
-    uid = os.getuid() if hasattr(os, "getuid") else "user"
-    return os.path.join(tempfile.gettempdir(), f"pislam_jax_cache_{uid}")
+    return os.path.join(REPO_ROOT, ".jax_cache")
 
 
 def enable_compile_cache() -> str:

@@ -36,7 +36,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
-# CPU cross-process collectives ride gloo (the CPU stand-in for ICI/DCN)
+# CPU cross-process collectives ride gloo (the CPU stand-in for NCCL)
 jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

@@ -2,6 +2,7 @@
 keyframe store semantics, triangulation."""
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
@@ -493,6 +494,56 @@ def test_ba_cg_matches_dense():
     np.testing.assert_allclose(np.asarray(cg.t), np.asarray(dense.t),
                                atol=1e-4)
 
+
+
+def test_ba_scale_anchor_step_is_orthogonal():
+    """One LM step with scale_anchor: the solved camera update has no
+    component along the anchor (camera 1's centre along the baseline from
+    camera 0), camera 1 still moves otherwise, and the dense and CG solves
+    agree."""
+    prob, _ = synthetic_ba(nc=6, npts=80, pose_noise=0.05, seed=4)
+    r, jc, jp, _ = ba.residuals_and_jacobians(prob)
+    a = ba._scale_anchor(prob, 1)
+    c = -np.einsum("cji,cj->ci", np.asarray(prob.R), np.asarray(prob.t))
+    u = (c[1] - c[0]) / np.linalg.norm(c[1] - c[0])
+    np.testing.assert_allclose(np.asarray(a)[6:9],
+                               np.asarray(prob.R[1]) @ u, atol=1e-6)
+    assert np.count_nonzero(np.asarray(a)) == 3
+    hcc, bc, hpp, bp, w = ba.gn_normal_blocks(prob, r, jc, jp)
+    s, b, _, _ = ba.schur_reduce(hcc, bc, hpp, bp, w, 1e-3, prob.cam_valid,
+                                 n_fixed=1, anchor=a)
+    dense = np.asarray(jnp.linalg.solve(s, b))
+    cg = np.asarray(ba.reduced_system_cg(prob, r, jc, jp, 1e-3, 96,
+                                         n_fixed=1, anchor=a)[0])
+    for dx in (dense, cg):
+        assert abs(float(dx @ np.asarray(a))) < 1e-6
+        np.testing.assert_array_equal(dx[:6], 0.0)
+        assert np.abs(dx[6:12]).max() > 1e-3
+    np.testing.assert_allclose(cg, dense, atol=1e-4)
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_ba_scale_anchor_converges(solver):
+    """The seven-DoF gauge: camera 0 untouched, camera 1 free to rotate
+    and to move across the baseline but held at its distance from camera 0
+    (to second order in the step), and the noise-free problem still
+    converges to zero cost."""
+    prob, _ = synthetic_ba(nc=6, npts=80, pose_noise=0.05, seed=4)
+    out, _ = ba.bundle_adjust(prob, iters=12, damping=1e-3, solver=solver,
+                              cg_iters=64, n_fixed=1, scale_anchor=True)
+    cost, nobs = ba.ba_cost(out)
+    assert float(cost) / float(nobs) < 1e-8
+    np.testing.assert_allclose(np.asarray(out.R[0]), np.asarray(prob.R[0]),
+                               atol=1e-6)
+    np.testing.assert_allclose(np.asarray(out.t[0]), np.asarray(prob.t[0]),
+                               atol=1e-6)
+    c_in = -np.einsum("cji,cj->ci", np.asarray(prob.R), np.asarray(prob.t))
+    c_out = -np.einsum("cji,cj->ci", np.asarray(out.R), np.asarray(out.t))
+    base_in = np.linalg.norm(c_in[1] - c_in[0])
+    base_out = np.linalg.norm(c_out[1] - c_out[0])
+    assert abs(base_out - base_in) < 0.02 * base_in, (base_in, base_out)
+    assert np.linalg.norm(c_out[1] - c_in[1]) > 1e-3
+    assert np.abs(np.asarray(out.R[1]) - np.asarray(prob.R[1])).max() > 1e-3
 
 def test_ba_cg_scales_to_256_cameras():
     """global_ba at keyframe_capacity 256: the dense path would build a

@@ -14,13 +14,13 @@ from pislam_tpu.config import FrontendConfig, PislamConfig, PyramidConfig
 
 def test_json_roundtrip_all_fields():
     cfg = PislamConfig(
-        frontend=FrontendConfig(fast_threshold=17, brief_variant="sorted",
+        frontend=FrontendConfig(fast_threshold=17, max_keypoints=1024,
                                 log_bucket_size=4, bucket_limit=3),
         pyramid=PyramidConfig(base_width=512, base_height=384, num_levels=5),
     )
     back = PislamConfig.from_json(cfg.to_json())
     assert back == cfg
-    assert back.frontend.brief_variant == "sorted"
+    assert back.frontend.max_keypoints == 1024
     # defaults round-trip too
     d = PislamConfig()
     assert PislamConfig.from_json(d.to_json()) == d
@@ -32,7 +32,7 @@ def test_frontend_validation():
     with pytest.raises(AssertionError):
         FrontendConfig(words=9)            # descriptor words in 1..8
     with pytest.raises(AssertionError):
-        FrontendConfig(brief_variant="fast")  # unknown kernel variant
+        FrontendConfig(words=0)            # descriptor words in 1..8
 
 
 def test_demo_level_table():

@@ -7,8 +7,8 @@ so the grounded equivalent is tests/golden/demo_golden.npz: the per-pixel
 reference-semantics oracle chain (tests/oracles.py) run once over the full
 640x2210 pyramid by tools/make_demo_golden.py. This test asserts the
 production `make_extract_fn` pipeline finds the exact same keypoint set with
-the exact same angle bins and descriptors. (tools/tpu_parity.py separately
-asserts the TPU hardware path matches this same pipeline bit-for-bit.)
+the exact same angle bins and descriptors. (chip_smoke.py separately
+asserts the GPU runs this same pipeline bit-for-bit like the CPU.)
 """
 
 import os

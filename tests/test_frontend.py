@@ -8,6 +8,7 @@ The oracle chain is the literal per-pixel implementation.
 import dataclasses
 
 import numpy as np
+import pytest
 
 import oracles
 from pislam_tpu.config import FrontendConfig, PislamConfig, PyramidConfig
@@ -37,7 +38,8 @@ def oracle_pipeline(stack, cfg):
         mask = oracles.fast_detect(img, fc.fast_threshold, fc.border)
         score = oracles.fast_score_harris(img, mask, fc.harris_threshold,
                                           fc.border)
-        pts = oracles.fast_extract(score, fc.border)
+        pts = oracles.fast_extract(score, fc.border, fc.log_bucket_size,
+                                   fc.bucket_limit)
         for p in pts:
             s, x, y = p >> 24, (p >> 12) & 0xFFF, p & 0xFFF
             points.append((s << 24) | (x << 12) | (y + r))
@@ -126,55 +128,24 @@ def test_extract_single_level_padding_invariance():
     assert (ys >= b).all() and (ys < h - b).all()
 
 
-def test_fused_bucketing_matches_xla_grid_interpret():
-    """Fused-path bucketing == XLA-path bucketing feature-for-feature.
-
-    Regression for a hardware-only bug: fused_frontend_keys emits each
-    16-row block's merged pairs as two planes (even pairs then odd pairs),
-    a row permutation that top_k is blind to but bucket_topk is not -- at
-    log_bucket_size=3 the (reduced) 4-row bucket cells split the 8-row
-    permutation blocks and cell membership went wrong (tpu_parity caught
-    1557 vs 1527 survivors on the demo pyramid). The fused path must
-    restore true y//2 row order before bucketing. Drives the REAL
-    production branch of _extract_impl on the Mosaic interpreter."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-    from _pytest.monkeypatch import MonkeyPatch
-
-    from pislam_tpu.frontend import _extract_impl
-    from pislam_tpu.ops import pallas_kernels as pk
-
-    rng = np.random.default_rng(7)
-    h, w = 96, 384
-    img = rng.integers(0, 256, (h, w), np.uint8)
-    border = 16
-    mask = np.zeros((h, w), bool)
-    mask[border:h - border, border:w - border] = True
-
-    def feature_set(fused, lbs, lim, monkey):
-        fe = FrontendConfig(fast_threshold=20, harris_threshold=1 << 10,
-                            border=border, max_keypoints=1024,
-                            log_bucket_size=lbs, bucket_limit=lim,
-                            fused_upstream=fused)
-        cfg = PislamConfig(frontend=fe)
-        if fused:
-            # available() says no on CPU only because there is no hardware
-            # win; the interpreter still runs the real kernels
-            monkey.setattr(pk, "available", lambda shape: True)
-            with pltpu.force_tpu_interpret_mode():
-                feats = _extract_impl(jnp.asarray(img), mask, cfg)
-            monkey.undo()
-        else:
-            feats = _extract_impl(jnp.asarray(img), mask, cfg)
-        v = np.asarray(feats.valid)
-        return set(np.asarray(feats.codes)[v].tolist())
-
-    monkey = MonkeyPatch()
-    try:
-        for lbs, lim in ((3, 2), (4, 5), (5, 1)):
-            a = feature_set(False, lbs, lim, monkey)
-            b = feature_set(True, lbs, lim, monkey)
-            assert a == b, (lbs, lim, len(a), len(b), len(a ^ b))
-            assert len(a) > 0, (lbs, lim)
-    finally:
-        monkey.undo()
+@pytest.mark.parametrize("lbs,limit", [(3, 2), (4, 5), (5, 1)])
+def test_bucketed_extraction_matches_oracle(lbs, limit):
+    """Spatial bucketing through the whole frontend (FAST, Harris, NMS,
+    per-cell cap, ORB) == the literal per-pixel oracle chain with the
+    reference's bucket scan (Fast.h:316-341), feature for feature."""
+    pyr = PyramidConfig(base_width=96, base_height=80, num_levels=1)
+    fe = FrontendConfig(fast_threshold=20, harris_threshold=1 << 10,
+                        border=16, max_keypoints=512, log_bucket_size=lbs,
+                        bucket_limit=limit)
+    cfg = PislamConfig(pyramid=pyr, frontend=fe)
+    stack = build_stack(cfg)
+    out = make_extract_fn(cfg)(stack)
+    want = oracle_pipeline(stack, cfg)
+    valid = np.asarray(out.valid)
+    codes = np.asarray(out.codes)[valid].tolist()
+    assert len(want) > 0
+    assert set(codes) == set(want)
+    for i, code in enumerate(codes):
+        assert out.angles[valid][i] == want[code][0], hex(code)
+        assert tuple(np.asarray(out.descriptors)[valid][i].tolist()) \
+            == want[code][1], hex(code)

@@ -4,7 +4,7 @@ Everything else in tests/ runs single-process on 8 virtual devices; this
 spawns TWO actual OS processes (4 virtual CPU devices each) that join one
 JAX runtime over a localhost coordinator and exercise the full distributed
 surface across the process boundary -- data-parallel extraction, cross-shard
-matching, distributed BA (gloo collectives standing in for ICI/DCN), and the
+matching, distributed BA (gloo collectives standing in for NCCL), and the
 CheckpointedRunner steps_done broadcast with non-shared checkpoint dirs
 (tests/multiproc_worker.py has the detail).
 

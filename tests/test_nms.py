@@ -76,11 +76,11 @@ def test_bucketing(log_bucket_size, bucket_limit):
 @pytest.mark.parametrize("log_bucket_size,bucket_limit",
                          [(4, 5), (3, 2), (5, 1), (1, 1), (2, 3)])
 def test_bucketing_on_reduced_grid(log_bucket_size, bucket_limit):
-    """The fused fast path buckets the 2x2-reduced code grid with halved
-    border/cell geometry (frontend.py). Exactness claim: 3x3 NMS leaves at
-    most one survivor per 2x2 block, and with an even border each block
-    lies whole inside one bucket cell, so the halved-geometry bucket_topk
-    keeps exactly the same code set as the full-grid one."""
+    """Bucketing commutes with an exact 2x2 pre-reduction of the code grid
+    (a candidate for cutting top-K's input 4x): 3x3 NMS leaves at most one
+    survivor per 2x2 block, and with an even border each block lies whole
+    inside one bucket cell, so the halved-geometry bucket_topk keeps
+    exactly the same code set as the full-grid one."""
     import jax.numpy as jnp
 
     score = scored_map(96, 128, 11, density=0.4)
@@ -88,7 +88,7 @@ def test_bucketing_on_reduced_grid(log_bucket_size, bucket_limit):
     enc = nms.encode_grid(jnp.asarray(score), keep)
     full = nms.bucket_topk(enc, BORDER, log_bucket_size, bucket_limit)
 
-    # 2x2 block max of the code grid = the fused path's `reduced` layout
+    # 2x2 block max of the code grid
     red = jnp.maximum(enc[0::2], enc[1::2])
     red = jnp.maximum(red[:, 0::2], red[:, 1::2])
     if bucket_limit < (1 << (log_bucket_size - 1)) ** 2:

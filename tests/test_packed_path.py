@@ -1,11 +1,9 @@
-"""The packed-window fast path must be bit-identical to the plain path.
+"""The packed-window path must be bit-identical to the plain path.
 
-The TPU frontend gathers 32x32 windows in a packed byte layout (4 rows per
-u32 lane; patches.packed_index_map) and runs orientation/BRIEF with
-remapped weight matrices. On CPU the same packed layout is produced by the
-fallback; these tests pin the layout contract and the consumer parity so
-the Pallas kernels (verified separately on hardware by tools/tpu_parity.py)
-have a trusted reference.
+The frontend gathers 32x32 windows in a packed byte layout (four rows
+interleaved per column; patches.packed_index_map) and runs orientation/BRIEF
+with remapped weight matrices; these tests pin the layout contract and the
+consumer parity against the plain (K, 31, 31) patch path.
 """
 
 import numpy as np
@@ -57,9 +55,8 @@ def test_packed_consumers_match_plain():
 def test_select_topk_scored_matches_select_topk():
     rng = np.random.default_rng(7)
     h, w, k = 128, 256, 128
-    # sparse NMS-like survivor grid: enforce the <=1-per-2x2 property that
-    # real NMS guarantees (select_topk_scored's reduction relies on it
-    # only in the Pallas path; the CPU path is unconditional)
+    # sparse NMS-like survivor grid (select_topk_scored makes no
+    # assumption about survivor spacing)
     scored = np.zeros((h, w), np.uint8)
     ys = rng.integers(2, h - 2, 300)
     xs = rng.integers(2, w - 2, 300)

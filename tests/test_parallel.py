@@ -6,6 +6,7 @@ must match per-frame extraction.
 
 import numpy as np
 import jax
+import pytest
 import jax.numpy as jnp
 
 from pislam_tpu.backend import ba
@@ -20,8 +21,17 @@ import oracles
 def test_mesh_shapes():
     m = meshmod.make_mesh(MeshConfig(data_parallel=4, model_parallel=2))
     assert m.devices.shape == (4, 2)
-    m2 = meshmod.make_mesh(MeshConfig())  # defaults to all-data
+    m2 = meshmod.make_mesh(MeshConfig(data_parallel=8))
     assert m2.devices.shape == (8, 1)
+
+
+@pytest.mark.parametrize("dp,mp,n", [(1, 1, 8), (2, 4, 4), (4, 1, 8)])
+def test_make_mesh_raises_on_count_mismatch(dp, mp, n):
+    """A mesh that does not use exactly the devices given is an error, never
+    a silent fallback to an unsharded layout."""
+    with pytest.raises(ValueError, match="devices"):
+        meshmod.make_mesh(MeshConfig(data_parallel=dp, model_parallel=mp),
+                          devices=jax.devices()[:n])
 
 
 def test_distributed_ba_matches_single():
@@ -460,54 +470,54 @@ def test_sharded_map_tracker_gated_matches_single():
     np.testing.assert_allclose(np.asarray(td), np.asarray(ts_), atol=1e-5)
 
 
-def test_sharded_match_kernel_branch_interpret():
-    """The TPU branch of _sharded_match_local (fused gated Pallas
-    reduction, never taken on the CPU backend) must match the XLA dense
-    branch bit-exactly across shards, via the Mosaic interpreter.
-
-    Kept at one VMEM tile per shard: at production map sizes the
-    interpret-mode callbacks inside shard_map stall at result
-    materialisation (hours-level interpreter cost at best, observed as a
-    hang), while the multi-tile accumulator logic itself is covered by
-    test_pallas_kernels.py::test_match_reduce_tiled_interpret and the
-    full-size branch runs on hardware in tools/tpu_parity.py."""
-    from jax.experimental.pallas import tpu as pltpu
+@pytest.mark.parametrize("radius", [0.0, 0.2])
+def test_sharded_match_body_matches_single(radius):
+    """Cross-shard matching (query replicated, database row-sharded over
+    4 devices) == single-device matching.match / match_gated bit for bit,
+    including a best-distance tie split across shards (the lowest global
+    index must win) and a gate that cuts candidates."""
     from jax.sharding import PartitionSpec as P
+    from pislam_tpu import matching
 
     rng = np.random.default_rng(31)
-    k1, k2 = 192, 1024  # 256 per shard: single tile, k1 pad path
+    k1, k2 = 192, 1024
     d1 = rng.integers(0, 2**32, (k1, 8), dtype=np.uint32)
     d2 = rng.integers(0, 2**32, (k2, 8), dtype=np.uint32)
-    d2[100] = d1[7]
-    d2[700] = d1[7]     # duplicate split across shards
-    v1 = rng.random(k1) < 0.9
-    v2 = rng.random(k2) < 0.9
     uv1 = rng.uniform(-0.5, 0.5, (k1, 2)).astype(np.float32)
     uv2 = rng.uniform(-0.5, 0.5, (k2, 2)).astype(np.float32)
+    for i in range(0, k1, 3):   # near-duplicates, near in the image too
+        d2[(i * 5) % k2] = d1[i] ^ np.uint32(rng.integers(0, 2**8))
+        uv2[(i * 5) % k2] = uv1[i] + rng.normal(0, 0.05, 2)
+    d2[100] = d1[7]
+    d2[700] = d1[7]             # exact tie split across shards
+    uv2[100] = uv2[700] = uv1[7]
+    v1 = rng.random(k1) < 0.9
+    v2 = rng.random(k2) < 0.9
+    v1[7] = v2[100] = v2[700] = True
+    j = lambda a: jnp.asarray(a)
 
     m = meshmod.make_mesh(MeshConfig(data_parallel=2, model_parallel=4))
 
-    def run(gate_radius):
-        gate = None
-        def body(b_s, v2_s, uv2_s):
-            g = (jnp.asarray(uv1), uv2_s, gate_radius) \
-                if gate_radius else None
-            return dist._sharded_match_local(
-                "model", 4, jnp.asarray(d1), b_s, jnp.asarray(v1), v2_s,
-                64, 0.8, True, gate=g)
-        f = jax.jit(jax.shard_map(
-            body, mesh=m,
-            in_specs=(P("model"), P("model"), P("model")),
-            out_specs=(P(), P()), check_vma=False))
-        return f(jnp.asarray(d2), jnp.asarray(v2), jnp.asarray(uv2))
+    def body(b_s, v2_s, uv2_s):
+        g = (j(uv1), uv2_s, radius) if radius else None
+        return dist._sharded_match_local(
+            "model", 4, j(d1), b_s, j(v1), v2_s, 64, 0.8, True, gate=g)
 
-    for radius in (0.0, 0.2):
-        idx_x, best_x = run(radius)                      # XLA branch (CPU)
-        dist._FORCE_MATCH_KERNEL = True
-        try:
-            with pltpu.force_tpu_interpret_mode():
-                idx_k, best_k = run(radius)              # kernel branch
-        finally:
-            dist._FORCE_MATCH_KERNEL = False
-        assert np.array_equal(np.asarray(idx_k), np.asarray(idx_x)), radius
-        assert np.array_equal(np.asarray(best_k), np.asarray(best_x)), radius
+    f = jax.jit(jax.shard_map(
+        body, mesh=m, in_specs=(P("model"), P("model"), P("model")),
+        out_specs=(P(), P()), check_vma=False))
+    idx_s, best_s = f(j(d2), j(v2), j(uv2))
+    if radius:
+        idx, dd = matching.match_gated(j(d1), j(d2), j(v1), j(v2), j(uv1),
+                                       j(uv2), radius)
+    else:
+        idx, dd = matching.match(j(d1), j(d2), j(v1), j(v2))
+        run = dist.make_sharded_match(m)
+        idx_r, dd_r = run(j(d1), j(d2), j(v1), j(v2))
+        assert np.array_equal(np.asarray(idx_r), np.asarray(idx))
+        assert np.array_equal(np.asarray(dd_r), np.asarray(dd))
+    idx, idx_s = np.asarray(idx), np.asarray(idx_s)
+    assert (idx >= 0).sum() > 10
+    assert np.array_equal(idx_s, idx)
+    ok = idx >= 0
+    assert np.array_equal(np.asarray(best_s)[ok], np.asarray(dd)[ok])

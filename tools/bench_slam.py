@@ -1,63 +1,51 @@
-"""On-chip SLAM tracking throughput: the device-resident scan.
+"""SLAM tracking throughput on the GPU: the device-resident scan.
+
+    python tools/bench_slam.py
 
 Times make_slam_track_scan (full tracking: pyramid + extraction + match vs
-last keyframe + RANSAC + map PnP + conditional keyframe insertion) on the
-committed 48-frame sequence by differencing two scan lengths, interleaved
-(verify-skill methodology: the scan has a hard sequential dependency, so it
-IS the in-jit chain; one sync per run). Window BA runs at keyframe rate on
-the host and is excluded here -- this is the steady-state tracking rate a
-serving deployment sees between BA refinements.
-
-Prints one JSON line: frames/s of full SLAM tracking.
+last keyframe + RANSAC + map PnP + conditional keyframe insertion) over the
+committed 48-frame eval sequence from a fresh state. One call processes the
+whole sequence and ends in block_until_ready; the value is the median of
+20 calls after a warm-up, divided by the frame count. Window BA runs at
+keyframe rate on the host and is excluded -- this is the tracking rate a
+serving deployment sees between BA refinements. Prints the card, then one
+JSON line. Fails without a GPU.
 """
 import json
 import os
 import sys
-import time
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
-import _bench_common  # noqa: F401  (compilation cache + sys.path)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "tools"))
 
-from pislam_tpu.models.slam import init_state
-from pislam_tpu.models.slam_scan import make_slam_track_scan
+from pislam_tpu.models.slam import init_state  # noqa: E402
+from pislam_tpu.models.slam_scan import make_slam_track_scan  # noqa: E402
+from pislam_tpu.utils.profiling import median_ms, require_gpu  # noqa: E402
 
 
 def main():
-    sys.path.insert(0, os.path.join(_bench_common._REPO, "tools"))
-    from eval_ate import slam_config
+    card = require_gpu()
+    from eval_ate import slam_config  # enables the compile cache
 
-    d = np.load(os.path.join(_bench_common._REPO, "data", "eval_seq.npz"))
+    d = np.load(os.path.join(REPO, "data", "eval_seq.npz"))
     frames = d["frames"]
     cfg = slam_config(frames.shape[2], frames.shape[1])
     run = make_slam_track_scan(
         cfg, float(d["fx"]), float(d["fy"]), float(d["cx"]), float(d["cy"]),
         keyframe_min_inliers=60, keyframe_max_gap=3)
-
-    t_lo, t_hi = 8, frames.shape[0]
-    st0 = init_state(cfg)
-    x_lo = jnp.asarray(frames[:t_lo])
-    x_hi = jnp.asarray(frames)
-
-    def once(x):
-        t0 = time.perf_counter()
-        st, outs = run(st0, x)
-        np.asarray(outs["pose_t"])  # true host sync
-        return time.perf_counter() - t0
-
-    once(x_lo); once(x_hi)  # warm both executables
-    lo_t, hi_t = [], []
-    for _ in range(int(os.environ.get("AB_REPS", "16"))):
-        lo_t.append(once(x_lo))
-        hi_t.append(once(x_hi))
-    per = (min(hi_t) - min(lo_t)) / (t_hi - t_lo)
+    ms = median_ms(run, init_state(cfg), jnp.asarray(frames)) \
+        / frames.shape[0]
+    print(card)
     print(json.dumps({"metric": "slam_track_scan_fps",
-                      "value": round(1.0 / per, 1), "unit": "frames/s",
-                      "ms_per_frame": round(per * 1e3, 4),
-                      "frames": int(t_hi),
-                      "resolution": f"{frames.shape[2]}x{frames.shape[1]}"}))
+                      "value": round(1e3 / ms, 1), "unit": "frames/s",
+                      "ms_per_frame": round(ms, 4),
+                      "frames": int(frames.shape[0]),
+                      "resolution": f"{frames.shape[2]}x{frames.shape[1]}",
+                      "card": card}))
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ detect/score/extract with y-offset re-encode, then one whole-pyramid
 orbCompute), and writes the keypoints + angle bins + descriptors to
 tests/golden/demo_golden.npz.
 
-tests/test_demo_golden.py then asserts the production TPU pipeline
+tests/test_demo_golden.py then asserts the production pipeline
 reproduces this byte-for-byte -- the grounded version of the reference's
 de-facto integration test (its demo binary's output).
 
